@@ -1,8 +1,8 @@
-"""advancedps_tpu — a TPU-native particle-based inference engine.
+"""advancedps_tpu — a particle-based inference engine for accelerators.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 TuringLang/AdvancedPS.jl (bootstrap SMC, Particle Gibbs, PGAS over a state-space-model
-DSL), redesigned TPU-first: dense particle-axis arrays advanced by ``lax.scan``,
+DSL), redesigned for accelerators: dense particle-axis arrays advanced by ``lax.scan``,
 positional counter-based RNG keys, vectorised resampling, genealogy-based trajectory
 storage, and ``shard_map`` collectives for multi-chip scaling.
 

@@ -5,7 +5,7 @@ and usage such as ``Normal(dyn.a * state, dyn.q)`` in
 ``/root/reference/examples/gaussian-ssm/script.jl:50-52``).  This module provides the
 equivalent vocabulary natively in JAX: every distribution is a frozen pytree with
 vectorised ``sample(key, sample_shape)`` / ``log_prob(x)`` so that a single call scores
-or samples **all particles at once** on the VPU — there is no per-particle object.
+or samples **all particles at once** — there is no per-particle object.
 
 Parameterisations follow ``Distributions.jl`` so that models written against the
 reference translate one-to-one:
@@ -80,7 +80,7 @@ class Distribution:
         (per-particle parameters, e.g. ``Normal(loc=x[N], q)``).
 
         Subclasses with cheap inverse/transform samplers override this with
-        direct counter-mode draws (one Threefry block per element, Pallas-safe
+        direct counter-mode draws (one Threefry block per element, kernel-safe
         uint32/float arithmetic); this fallback derives one jax PRNG key per
         global id, which is positional but costs a second cipher pass.
         """
@@ -199,7 +199,7 @@ class MvNormal(Distribution):
         shape = self._full_shape(sample_shape) + self.event_shape
         eps = jax.random.normal(key, shape, dtype=jnp.result_type(float))
         return jnp.asarray(self.loc) + jnp.einsum(
-            "...ij,...j->...i", self._chol, eps
+            "...ij,...j->...i", self._chol, eps, precision=lax.Precision.HIGHEST
         )
 
     def sample_positional(self, key, gids):
@@ -207,7 +207,7 @@ class MvNormal(Distribution):
 
         eps = rngmod.pos_normals(key, gids, self.event_shape[0])  # [n, D]
         return jnp.asarray(self.loc) + jnp.einsum(
-            "...ij,...j->...i", self._chol, eps
+            "...ij,...j->...i", self._chol, eps, precision=lax.Precision.HIGHEST
         )
 
     def log_prob(self, x):

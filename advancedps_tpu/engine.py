@@ -1,6 +1,6 @@
 """The particle sweep engine: one ``lax.scan`` over time, all particles dense.
 
-This module is the TPU-native replacement for the reference's L4 layer — the
+This module is the array-native replacement for the reference's L4 layer — the
 ``ParticleContainer`` + ``sweep!`` loop (``/root/reference/src/container.jl:316-363``)
 with its per-particle ``advance!`` (``/root/reference/src/pgas.jl:53-89``), fork loop
 (``/root/reference/src/container.jl:190-217``) and seed-tree bookkeeping.  Where the
@@ -48,15 +48,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from . import rng as rngmod
-from .resampling import (
-    ResampleWithESSThreshold,
-    multinomial_spacings,
-    randcat_gumbel,
-    resample_multinomial,
-    resample_stratified,
-    resample_systematic,
-    stratified_extents,
-)
+from .resampling import ResampleWithESSThreshold, randcat_gumbel
 from .utils.trees import pytree_dataclass, static_field
 
 __all__ = [
@@ -77,24 +69,6 @@ def propagate_rng(key, t, gids):
     micro-benchmark profiled a differently-constructed StepRng; see
     profiling/profile_sweep.py)."""
     return rngmod.StepRng(key=rngmod.step_key(key, rngmod.PROPAGATE, t), gids=gids)
-
-try:  # Pallas TPU fast path for resample+move (optional: needs pallas)
-    from .ops import pallas_resample as _pallas_move
-except Exception:  # pragma: no cover - pallas unavailable
-    _pallas_move = None
-
-#: Schemes with a monotone-extents reduction into the fused Pallas
-#: decode+move pipeline (round-4 verdict #1: stratified positions are sorted
-#: by construction; multinomial uniforms are *generated* sorted via the
-#: exponential-spacings construction).  Residual has no sorted-positions
-#: form (its deterministic copies + multinomial tail interleave) and keeps
-#: the XLA fallback.
-_FUSED_SCHEMES = {
-    resample_systematic: "systematic",
-    resample_stratified: "stratified",
-    resample_multinomial: "multinomial",
-}
-
 
 class SweepKernel:
     """Protocol the sweep engine drives.  Implementations: the SSM kernel
@@ -158,8 +132,18 @@ class SweepResult:
 
 
 def _gather(state, idx):
-    """Resampling = one gather of the whole particle state by ancestor index."""
-    return jax.tree_util.tree_map(lambda a: jnp.take(a, idx, axis=0), state)
+    """Resampling = one gather of the whole particle state by ancestor index.
+
+    Ancestors lie in ``[0, N)`` by construction, so the gather clamps instead
+    of masking out-of-range rows with NaN.  The mask's select sat between the
+    gathered row and the propagate step's multiply-add, which kept XLA from
+    contracting it into an FMA only where the gather fuses into propagate (the
+    always-resample program), so that program's states differed by an ulp
+    from the ESS-gated one's.
+    """
+    return jax.tree_util.tree_map(
+        lambda a: jnp.take(a, idx, axis=0, mode="clip"), state
+    )
 
 
 def inject_ref(ref_mask, ref_val, vals):
@@ -272,114 +256,20 @@ def sweep(
             weights = e / s1  # normalised only on resampling steps
             rs_key = rngmod.step_key(key, rngmod.RESAMPLE, t)
 
-            # Fast path: the fused Pallas kernel decodes the ancestors AND
-            # moves the whole particle state in one VMEM pass — XLA's dynamic
-            # scatter/gather at 1M particles costs ~8 ms each on v5e, the
-            # kernel ~3.6 ms total (ops/pallas_resample.py).  Statically
-            # chosen at trace time; exact.  Systematic, stratified and
-            # multinomial all reduce to the same monotone-extents decode
-            # (``_FUSED_SCHEMES``); residual keeps the XLA fallback.
-            scheme = _FUSED_SCHEMES.get(resampler.resampler)
-            use_fused = False
-            if scheme is not None and _pallas_move is not None:
-                reason = _pallas_move.move_ineligible_reason(state, n)
-                use_fused = reason is None
-                if not use_fused and n >= 65536 and reason != "backend is not TPU":
-                    # Big-N fallbacks are a ~2x-per-firing cliff that used to
-                    # be silent (round-3 verdict weak #3); surface it once at
-                    # trace time.
-                    import warnings
-
-                    warnings.warn(
-                        f"resampling falls back to the XLA gather path at "
-                        f"n={n}: {reason} (see ops.pallas_resample."
-                        f"move_ineligible_reason)",
-                        stacklevel=2,
-                    )
-            elif (
-                scheme is None
-                and n >= 65536
-                and jax.default_backend() == "tpu"
-            ):
-                # Round-4 verdict weak #2: non-fast-path resamplers at big N
-                # were a silent ~40x-per-firing cliff.
-                import warnings
-
-                warnings.warn(
-                    f"resampler {getattr(resampler.resampler, '__name__', resampler.resampler)!r} "
-                    f"has no fused fast path at n={n}; each triggered "
-                    "resampling pays the XLA searchsorted+gather cost "
-                    "(~40x the systematic kernel at 1M — docs/benchmarks.md)",
-                    stacklevel=2,
-                )
-
-            def draw_ref_anc():
+            anc = resampler.resampler(rs_key, weights, n_resample)
+            if has_ref:
+                # The reference slot N-1 keeps its own ancestor: N-1 for PG;
+                # for PGAS a draw ∝ logW_i + log f_t(ref_t | state_i)
+                # (the reference's math, src/pgas.jl:39-46,113-128).
+                # Gumbel-max draw: no softmax, no cumsum — one elementwise
+                # pass + argmax.
                 ref_anc = jnp.asarray(n - 1, dtype=jnp.int32)
                 if ancestor_sampling:
-                    # PGAS: w_i^anc = logW_i + log f_t(ref_t | state_i)
-                    # (reference math /root/reference/src/pgas.jl:39-46,113-128).
-                    # Gumbel-max draw: no softmax, no cumsum — one elementwise
-                    # pass + argmax (randcat's CDF inversion costs a log-depth
-                    # prefix scan per step at N ~ 1e6).
                     ref_t = _ref_slice(ref, t)
                     anc_logw = logw + kernel.transition_logprob(t, state, ref_t)
                     anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
                     ref_anc = randcat_gumbel(anc_key, anc_logw, gids)
-                return ref_anc
-
-            if use_fused:
-                # Extents straight from the already-reduced (m, s1) — the
-                # Pallas prefix-scan replaces XLA's multi-pass 1M cumsum
-                # (~1.5 ms/firing) with one streamed VMEM pass.
-                if scheme == "systematic":
-                    u = jax.random.uniform(rs_key, dtype=weights.dtype)
-                    f = _pallas_move.extents_from_logw(
-                        logw, m, s1, u, n_resample
-                    )
-                elif scheme == "stratified":
-                    # c = n·cdf; the boundary stratum's uniform is evaluated
-                    # positionally (cipher, no gather) — resampling.py.
-                    c = _pallas_move.scaled_prefix_from_logw(
-                        logw, m, n_resample / s1
-                    )
-                    f = stratified_extents(rs_key, c, n_resample)
-                else:  # multinomial: sorted uniforms by exponential spacings
-                    g = multinomial_spacings(rs_key, n_resample)
-                    S = _pallas_move.prefix_sum(g)
-                    thr = _pallas_move.scaled_prefix_from_logw(
-                        logw, m, S[n_resample] / s1
-                    )
-                    f = _pallas_move.count_le_sorted_auto(S[:n_resample], thr)
-                if has_ref:
-                    # Decode ALL n slots (slot n-1 decodes past the drawn
-                    # population: anc = m-1, value 0 — see guard_n) and
-                    # overwrite slot n-1 with the reference row IN PLACE.
-                    # The old concatenate([n-1 rows] + [1 row]) forced two
-                    # full-state copies per firing (~150 µs/step at 1M in
-                    # the round-5 PGAS phase profile).
-                    anc_full, moved = _pallas_move.resample_move_f(
-                        f, state, n, guard_n=n_resample
-                    )
-                    ref_anc = draw_ref_anc()
-                    anc = anc_full.at[n - 1].set(ref_anc)
-                    ref_row = jax.tree_util.tree_map(
-                        lambda a: a[ref_anc], state
-                    )
-                    state_rs = jax.tree_util.tree_map(
-                        lambda mv, r: mv.at[n - 1].set(r), moved, ref_row
-                    )
-                else:
-                    anc, state_rs = _pallas_move.resample_move_f(
-                        f, state, n_resample
-                    )
-                return anc, state_rs, jnp.zeros_like(logw)
-
-            anc_drawn = resampler.resampler(rs_key, weights, n_resample)
-            if has_ref:
-                ref_anc = draw_ref_anc()
-                anc = jnp.concatenate([anc_drawn, ref_anc[None]])
-            else:
-                anc = anc_drawn
+                anc = jnp.concatenate([anc, ref_anc[None]])
             return anc, _gather(state, anc), jnp.zeros_like(logw)
 
         def skip_branch(operand):
@@ -473,7 +363,7 @@ def replay_trajectory(key, kernel, ancestors, index, ref=None):
     exactly from the genealogy alone: backward-walk ``ancestors`` to the slot
     ``s_t`` the retained particle occupied at each step, then re-run the
     kernel forward with one-particle slices whose gid is ``s_t``.  This is the
-    TPU-native form of the reference's seed-tree replay
+    array-native form of the reference's seed-tree replay
     (``/root/reference/src/rng.jl:49-53``): O(T) work and O(T·D) memory, no
     ``[T, N, D]`` storage.
 

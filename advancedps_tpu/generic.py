@@ -1,4 +1,4 @@
-"""Generic-model front-end — the TPU-native replacement for the Libtask extension.
+"""Generic-model front-end — the array-native replacement for the Libtask extension.
 
 The reference runs *arbitrary Julia programs* as particles by executing them as
 copyable coroutines: ``advance!`` is ``Libtask.consume`` which resumes a task until

@@ -2,7 +2,7 @@
 
 The reference simulates a Gamma-process jump path with a data-dependent ``while``
 loop (``/root/reference/examples/levy-ssm/script.jl:21-40``) — impossible under XLA.
-The TPU-native redesign draws a **fixed budget of K candidate jumps** and masks:
+The array-native redesign draws a **fixed budget of K candidate jumps** and masks:
 
 * arrival times ``t_k`` = cumsative sums of Exp(1/rate) draws (Poisson-process
   arrivals, as the reference's ``t += rand(Exponential(1/rate))``);
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..distributions import MvNormal, Normal
 from ..ssm import LatentDynamics, ObservationProcess, StatePrior, StateSpaceModel
@@ -103,13 +104,16 @@ class LevyLangevinDynamics(LatentDynamics):
         m = mask.astype(fts.dtype)[:, None]
         mu = jnp.sum(fts * m * self.mu_w * jumps[:, None], axis=0)
         cov = jnp.einsum(
-            "ki,kj->ij", fts * m * (jumps[:, None]), fts
+            "ki,kj->ij", fts * m * (jumps[:, None]), fts,
+            precision=lax.Precision.HIGHEST,
         ) * (self.sigma_w**2)
         return mu, cov + self.jitter * jnp.eye(2)
 
     def _dist(self, key, step, state):
         mu, cov = self._meancov(key, step)
-        mean = self._expm(self.dt) @ state + mu
+        mean = jnp.matmul(
+            self._expm(self.dt), state, precision=lax.Precision.HIGHEST
+        ) + mu
         return MvNormal(mean, cov)
 
     # LatentDynamics interface: sample uses the particle's key; log_prob uses a

@@ -3,9 +3,10 @@
 The reference has no distributed code at all (SURVEY.md §2.12-2.13) — this module is
 the invented-from-the-north-star layer.  SMC's natural parallel axis is the particle
 axis N (the time axis is a Markov recursion); independent chains form a free second
-axis.  We build 1-D ``(particles,)`` or 2-D ``(chains, particles)`` meshes; on real
-hardware the particle axis should map to ICI-adjacent devices so the resampling
-all-gather rides ICI, not DCN.
+axis.  We build 1-D ``(particles,)`` or 2-D ``(chains, particles)`` meshes.  The GPUs
+of one host are joined all to all by NVLink and XLA hands the collectives to NCCL,
+so within a host the mesh follows the algorithm alone; across hosts the particle
+axis should keep each host's shards contiguous.
 """
 
 from __future__ import annotations
@@ -41,28 +42,32 @@ def init_distributed(
 
     * must run BEFORE any backend use (first ``jax.devices()``/array op) —
       after that the local backend is pinned and cannot join a cluster;
-    * on CPU backends a cross-process collectives implementation must be
-      selected first (``jax_cpu_collectives_implementation``; ``gloo`` is
-      the portable choice) or ``psum``/``all_gather`` across processes
-      fail at dispatch — this is what lets the multi-process layer be
-      *tested* on CPU hosts with no TPU fabric (each process contributes
-      ``--xla_force_host_platform_device_count=K`` virtual devices);
-    * on TPU pods, processes and device topology are discovered from the
-      environment; ``coordinator_address`` is any one host's
-      ``ip:port``.
+    * GPU processes run their cross-process collectives on NCCL, which
+      needs no setting here;
+    * CPU backends need a cross-process collectives implementation
+      selected first (``jax_cpu_collectives_implementation``; ``gloo``,
+      the default of ``cpu_collectives``, is the portable choice) or
+      ``psum``/``all_gather`` across processes fail at dispatch — this is
+      what lets the multi-process layer be *tested* on CPU hosts (each
+      process contributes ``--xla_force_host_platform_device_count=K``
+      virtual devices);
+    * ``coordinator_address`` is any one process's ``host:port``
+      (``localhost:<port>`` on one machine); nothing is discovered from the
+      environment, so every process passes ``num_processes`` and its own
+      ``process_id``.
 
     After this returns, ``jax.devices()`` lists the GLOBAL device set, so
     :func:`particle_mesh`/:func:`chain_particle_mesh` build process-spanning
     meshes unchanged, and the sharded sweeps run on them unchanged — all
-    cross-chip traffic is XLA collectives, which ride ICI within a host/slice
-    and DCN across hosts (docs/parallel.md).
+    cross-device traffic is XLA collectives, which ride NVLink within a host
+    and the network across hosts (docs/parallel.md).
     """
     if cpu_collectives is not None:
         try:
             jax.config.update(
                 "jax_cpu_collectives_implementation", cpu_collectives
             )
-        except Exception:  # config absent on this jax: TPU-only deployment
+        except Exception:  # config absent on this jax
             pass
     kwargs = {}
     if local_device_ids is not None:

@@ -7,7 +7,7 @@ sharding-aware:
 * the retained trajectory is extracted from the sharded state stack ``[T, N@p, ...]``
   by a **one-hot contraction** over the particle axis — ``traj[t] = Σ_n 1[lin_t = n]
   · states[t, n]`` — which XLA lowers to a local partial reduction plus one
-  ``psum``-style all-reduce over ICI, instead of a cross-shard dynamic gather.
+  ``psum``-style all-reduce over the interconnect, instead of a cross-shard dynamic gather.
 
 This mirrors the single-chip drivers in :mod:`advancedps_tpu.inference`; the chain
 state (:class:`~advancedps_tpu.pg.PGState`) is identical, so chains can move between
@@ -125,8 +125,7 @@ def sharded_sample_pg(
     ``trajectory_storage``/``exchange`` plumb straight through to
     :func:`sharded_step_pg`, so the flagship multi-chip configuration — PGAS at
     1M particles with ``"replay"`` genealogy compaction and the O(N/K·D)
-    neighbour exchange — is reachable from the chain driver (round-3 verdict
-    weak #4; previously only the hand-rolled step loop could request it)."""
+    neighbour exchange — is reachable from this chain function."""
     first, st = sharded_step_pg(
         jax.random.fold_in(key, 0), kernel, sampler, mesh, None, axis,
         trajectory_storage, exchange,

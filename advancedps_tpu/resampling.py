@@ -4,11 +4,17 @@ The reference implements four ancestor-index samplers as sequential CDF walks
 (``/root/reference/src/resampling.jl``: ``resample_systematic`` :149-183,
 ``resample_stratified`` :98-131, ``resample_multinomial`` :31-35,
 ``resample_residual`` :53-81, plus ``randcat`` :11-21 and the ESS-threshold wrapper
-:193-204).  Those are O(N) scalar loops — exactly the shape TPUs are worst at.
+:193-204).  Those are O(N) scalar loops — exactly the shape accelerators are
+worst at.
 
-Here each scheme is a single vectorised expression over the particle axis:
-``cumsum`` of the weights plus a ``searchsorted`` (binary search batched on the VPU).
+Here each scheme is a single vectorised expression over the particle axis.
 The math is identical: sample ``x_i = j`` iff ``u_i ∈ [cum_{j-1}, cum_j)``.
+Where the positions lie on a grid (systematic, stratified, residual's
+deterministic copies) the number of positions below each CDF entry has a
+closed form, the *extents*, and :func:`_decode_extents` turns them into
+ancestors with one scatter and one cumulative max, with no search.  Where
+the positions are iid (multinomial, the residual tail, ``randcat``) there is
+no closed form and :func:`_inverse_cdf` runs a batched binary search.
 
 All resamplers share the signature ``resampler(key, weights, n) -> int32[n]`` where
 ``weights`` are normalised probabilities.  They are jit/vmap/shard_map-safe (fixed
@@ -30,7 +36,6 @@ __all__ = [
     "resample_multinomial",
     "resample_residual",
     "stratified_extents",
-    "multinomial_spacings",
     "DEFAULT_RESAMPLER",
     "ResampleWithESSThreshold",
     "effective_sample_size",
@@ -43,12 +48,35 @@ def _inverse_cdf(weights: jax.Array, us: jax.Array) -> jax.Array:
     Returns ``idx`` with ``idx_i = j`` iff ``u_i ∈ [cum_{j-1}, cum_j)`` — the same
     selection rule as the reference's sequential walks
     (``/root/reference/src/resampling.jl:149-183``), computed as a batched binary
-    search instead of a scalar loop.
+    search instead of a scalar loop.  The search's levels are unrolled: a
+    rolled loop costs one device loop iteration per level.
     """
     cdf = jnp.cumsum(weights)
     # Clamp: floating cumsum of normalised weights may end slightly below 1.
-    idx = jnp.searchsorted(cdf, us, side="right")
+    idx = jnp.searchsorted(cdf, us, side="right", method="scan_unrolled")
     return jnp.clip(idx, 0, weights.shape[0] - 1).astype(jnp.int32)
+
+
+def _decode_extents(f: jax.Array, n: int) -> jax.Array:
+    """Ancestors from extents: ``anc[k] = #{j : f_j <= k}`` for ``k < n``.
+
+    ``f`` (int32, length ``m``) is nondecreasing with values in ``[0, n]``:
+    ``f_j`` counts the output positions that fall below CDF entry ``j``, so
+    particle ``j`` fills output slots ``[f_{j-1}, f_j)``.  Each nonempty run
+    writes its particle index at its first slot; a cumulative max fills the
+    run.  Slots at or past ``f[-1]`` repeat the last nonempty run, so callers
+    that need every slot drawn set ``f[-1] = n``.
+    """
+    m = f.shape[0]
+    starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), f[:-1]])
+    j = jnp.arange(m, dtype=jnp.int32)
+    # Nonempty runs start at distinct slots; empty runs are dropped.  The
+    # indices are unique, but declaring them so (``unique_indices``) gave
+    # run-to-run different results on an H100; a plain scatter-max is exact
+    # and deterministic there.
+    tgt = jnp.where(f > starts, starts, n)
+    s = jnp.zeros((n,), jnp.int32).at[tgt].max(j, mode="drop")
+    return jax.lax.cummax(s)
 
 
 def randcat(key: jax.Array, weights: jax.Array) -> jax.Array:
@@ -63,7 +91,7 @@ def randcat_gumbel(key: jax.Array, log_weights: jax.Array, gids=None) -> jax.Arr
 
     Same distribution as :func:`randcat` ∘ softmax, but with no normalisation
     and no prefix scan: one positional-uniform pass, one Gumbel transform, one
-    argmax.  On TPU at N ~ 1e6 this replaces a softmax (3 passes) + ``cumsum``
+    argmax.  At N ~ 1e6 this replaces a softmax (3 passes) + ``cumsum``
     (log-depth passes) with a single fused elementwise+reduce — the fast form
     for the per-step PGAS ancestor draw.  The per-element Gumbel is a pure
     function of ``(key, gids[i])`` (see :mod:`advancedps_tpu.rng`), and argmax
@@ -82,78 +110,40 @@ def randcat_gumbel(key: jax.Array, log_weights: jax.Array, gids=None) -> jax.Arr
     return jnp.argmax(z).astype(jnp.int32)
 
 
-def _systematic_searchsorted(u, weights, n):
-    us = (u + jnp.arange(n, dtype=weights.dtype)) / n
-    return _inverse_cdf(weights, us)
-
-
-def _scatter_decode(f, n):
-    """Run-length decode of nondecreasing int32 extents ``f`` (length ``m``,
-    values in [0, n]) into the ancestor vector ``anc[k] = #{j : f_j ≤ k}`` by
-    scatter + cumulative max.  No binary search, no sort: on TPU this is ~10×
-    faster inside a ``lax.scan`` than XLA's scan-based ``searchsorted``
-    lowering (measured ~15 ms vs ~139 ms per 1M-particle step on v5e)."""
-    m = f.shape[0]
-    starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), f[:-1]])
-    counts = f - starts
-    j = jnp.arange(m, dtype=jnp.int32)
-    # Runs with count > 0 have distinct start slots; drop empty runs.
-    tgt = jnp.where(counts > 0, starts, n)
-    s = jnp.zeros((n,), jnp.int32).at[tgt].max(j, mode="drop", unique_indices=True)
-    return jax.lax.cummax(s)
-
-
-def _systematic_scatter(u, weights, n):
-    """Search-free systematic resampling via the closed-form extents
-    ``f_j = ceil(n·cdf_j − u)`` (the number of equally-spaced positions below
-    each CDF entry) + :func:`_scatter_decode`.
-
-    Accuracy note: ``n·cdf`` in float32 rounds at the ~0.06 ulp level for
-    n ~ 1e6, flipping ~0.2% of indices by ±1 slot relative to exact arithmetic —
-    statistically equivalent to perturbing ``u`` per-entry by ~1e-7; the same
-    order as the float32 ``cumsum`` rounding both formulations share.
-    """
-    cdf = jnp.cumsum(weights)
-    f = jnp.clip(jnp.ceil(n * cdf - u), 0, n).astype(jnp.int32)
-    return _scatter_decode(f, n)
-
-
-# Particle count above which the scatter formulation wins on TPU.
-_TPU_SCATTER_MIN_N = 16384
-
-
 def resample_systematic(key: jax.Array, weights: jax.Array, n: int) -> jax.Array:
-    """Systematic resampling: one shared uniform, ``u_k = (u + k) / n``.
+    """Systematic resampling: one shared uniform, positions ``(u + k) / n``.
 
-    Reference: ``/root/reference/src/resampling.jl:149-183``.  On TPU at large N
-    the search-free scatter formulation is used (see ``_systematic_scatter``).
+    Reference: ``src/resampling.jl:149-183``.  The extents are
+    ``f_j = ceil(n·cdf_j − u)``.  In float32, ``n·cdf`` rounds at the ~0.06 ulp
+    level for n ~ 1e6, which flips ~0.2% of indices by one slot relative to
+    exact arithmetic — the same class as the float32 ``cumsum`` rounding that
+    every formulation shares.
     """
-    u = jax.random.uniform(key, dtype=weights.dtype)
-    if jax.default_backend() == "tpu" and n >= _TPU_SCATTER_MIN_N:
-        return _systematic_scatter(u, weights, n)
-    return _systematic_searchsorted(u, weights, n)
+    return _systematic(jax.random.uniform(key, dtype=weights.dtype), weights, n)
+
+
+def _systematic(u, weights, n):
+    f = jnp.clip(jnp.ceil(n * jnp.cumsum(weights) - u), 0, n).astype(jnp.int32)
+    return _decode_extents(f.at[-1].set(n), n)
 
 
 def stratified_extents(key: jax.Array, c: jax.Array, n: int) -> jax.Array:
-    """Stratified-resampling extents ``f_j = #{k : (k + u_k)/n ≤ cdf_j}``
-    from the scaled CDF ``c = n·cdf`` — closed form, ONE positional-cipher
-    evaluation per particle, no gather.
+    """Stratified extents ``f_j = #{k : (k + u_k)/n < cdf_j}`` from the scaled
+    CDF ``c = n·cdf``, with one positional-cipher evaluation per particle.
 
     Because ``u_k`` is a pure function of ``(key, k)``
     (:func:`advancedps_tpu.rng.pos_uniform`), the count has the closed form
-    ``f_j = ⌊c_j⌋ + [u_{⌊c_j⌋} ≤ c_j − ⌊c_j⌋]``: every stratum fully below
+    ``f_j = ⌊c_j⌋ + [u_{⌊c_j⌋} < c_j − ⌊c_j⌋]``: every stratum fully below
     ``c_j`` contributes 1, and the boundary stratum contributes its own
-    uniform's indicator — evaluated *positionally* at the data-dependent
-    stratum index, which on TPU is elementwise cipher arithmetic, not a
-    gather.  Nondecreasing by construction (same uniform at equal boundary
-    strata).  Same f32 ``n·cdf`` rounding class as the systematic extents.
+    uniform's indicator, evaluated at the data-dependent stratum index.
+    Nondecreasing by construction (the same uniform at equal boundary strata).
     """
     from . import rng as rngmod
 
     c = jnp.clip(c, 0.0, float(n))
     kj = jnp.minimum(jnp.floor(c), float(n - 1))
     ku = rngmod.pos_uniform(key, kj.astype(jnp.int32))
-    f = jnp.where(c >= float(n), float(n), kj + (ku <= c - kj))
+    f = jnp.where(c >= float(n), float(n), kj + (ku < c - kj))
     return f.astype(jnp.int32)
 
 
@@ -162,43 +152,19 @@ def resample_stratified(key: jax.Array, weights: jax.Array, n: int) -> jax.Array
     uniform ``u_k``.
 
     Reference: ``/root/reference/src/resampling.jl:98-131``.  ``u_k`` is
-    *positional* (a pure function of ``(key, k)``), which makes the three
-    formulations of this scheme consume identical randomness: this
-    searchsorted form, the scatter form used on TPU at large ``n``, and the
-    engine's fused Pallas pipeline (:func:`stratified_extents` +
-    ``resample_move_f``) — they agree up to the documented ±1 f32 boundary
-    flips.
+    *positional* (a pure function of ``(key, k)``), so a sharded layout
+    consumes the same randomness as a single device, and the extents have the
+    closed form of :func:`stratified_extents`.
     """
-    from . import rng as rngmod
-
-    if jax.default_backend() == "tpu" and n >= _TPU_SCATTER_MIN_N:
-        c = n * jnp.cumsum(weights)
-        return _scatter_decode(stratified_extents(key, c, n), n)
-    u = rngmod.pos_uniform(key, jnp.arange(n)).astype(weights.dtype)
-    us = (u + jnp.arange(n, dtype=weights.dtype)) / n
-    return _inverse_cdf(weights, us)
-
-
-def multinomial_spacings(key: jax.Array, n: int) -> jax.Array:
-    """``n + 1`` positional Exp(1) gaps for the sorted-uniform construction
-    (Devroye 1986, §V.3): the n sorted uniforms are ``S_k / S_n`` for the
-    inclusive prefix sums ``S`` of these gaps.  Used by the engine's fused
-    multinomial path; ``-log1p(-u)`` keeps the gap finite at ``u = 0``."""
-    from . import rng as rngmod
-
-    u = rngmod.pos_uniform(key, jnp.arange(n + 1))
-    return -jnp.log1p(-u)
+    f = stratified_extents(key, n * jnp.cumsum(weights), n)
+    return _decode_extents(f.at[-1].set(n), n)
 
 
 def resample_multinomial(key: jax.Array, weights: jax.Array, n: int) -> jax.Array:
     """Multinomial resampling: n iid categorical draws.
 
     Reference: ``/root/reference/src/resampling.jl:31-35``.  Uniforms are
-    positional (pure functions of ``(key, k)``).  Note the engine's fused
-    TPU path draws the *sorted* uniforms directly via
-    :func:`multinomial_spacings` — a different (equally distributed) random
-    variable, so its ancestor vector is the sorted version of a different
-    draw; offspring counts are Multinomial(n, w) in both.
+    positional (pure functions of ``(key, k)``).
     """
     from . import rng as rngmod
 
@@ -212,9 +178,10 @@ def resample_residual(key: jax.Array, weights: jax.Array, n: int) -> jax.Array:
 
     Reference: ``/root/reference/src/resampling.jl:53-81``.  Vectorised formulation:
     with ``c = cumsum(floor(n·w))`` the deterministic copies occupy output slots
-    ``k < c[-1]`` and slot ``k`` holds ``searchsorted(c, k, 'right')``; the remaining
-    slots draw from the residual distribution.  Fixed shapes throughout (the
-    data-dependent count of deterministic copies becomes a mask, not a shape).
+    ``k < c[-1]`` and slot ``k`` holds ``#{j : c_j <= k}`` (the extents decode of
+    ``c``); the remaining slots draw from the residual distribution.  Fixed
+    shapes throughout (the data-dependent count of deterministic copies
+    becomes a mask, not a shape).
     """
     scaled = n * weights
     floors = jnp.floor(scaled)
@@ -222,9 +189,8 @@ def resample_residual(key: jax.Array, weights: jax.Array, n: int) -> jax.Array:
     counts_cdf = jnp.cumsum(floors)
     n_det = counts_cdf[-1]  # number of deterministic copies (traced scalar)
 
-    slots = jnp.arange(n, dtype=weights.dtype)
-    det_idx = jnp.searchsorted(counts_cdf, slots, side="right")
-    det_idx = jnp.clip(det_idx, 0, weights.shape[0] - 1).astype(jnp.int32)
+    # The deterministic copies' extents are the integer counts themselves.
+    det_idx = _decode_extents(jnp.clip(counts_cdf, 0, n).astype(jnp.int32), n)
 
     res_total = jnp.sum(residuals)
     # Guard the fully-deterministic case (all residuals zero).
@@ -232,6 +198,7 @@ def resample_residual(key: jax.Array, weights: jax.Array, n: int) -> jax.Array:
     res_weights = residuals / safe
     res_idx = resample_multinomial(key, res_weights, n)
 
+    slots = jnp.arange(n, dtype=weights.dtype)
     return jnp.where(slots < n_det, det_idx, res_idx)
 
 

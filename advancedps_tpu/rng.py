@@ -1,4 +1,5 @@
-"""Counter-based key discipline — the TPU replacement for the reference's seed tree.
+"""Counter-based key discipline — the array-native replacement for the reference's
+seed tree.
 
 The reference keeps a mutable ``TracedRNG`` per particle: a Philox counter-based
 generator plus a per-step ``keys`` history, so a trajectory can be *replayed* instead of
@@ -59,7 +60,7 @@ def step_key(key: jax.Array, tag: int, t) -> jax.Array:
 # Positional counter-based draws (Threefry-2x32)
 # ---------------------------------------------------------------------------
 #
-# The TPU-fast sampling path: the j-th draw of the particle with global id
+# The fast sampling path: the j-th draw of the particle with global id
 # ``g`` at a given (stream, step) is a pure function of ``(step_key, j, g)`` —
 # one Threefry-2x32 block evaluation with the step key as cipher key and
 # ``(j, g)`` as the counter.  This is the same counter-based construction as
@@ -72,9 +73,8 @@ def step_key(key: jax.Array, tag: int, t) -> jax.Array:
 #   batch (the O(T) retained-trajectory replay, the dense analogue of the
 #   reference's seed-tree replay ``/root/reference/src/rng.jl:49-53``).
 #
-# The implementation is plain ``jnp`` uint32 arithmetic, so the very same
-# function runs under XLA *and inside Pallas kernels* — the fused TPU kernels
-# draw identical randomness to the reference engine path.
+# The implementation is plain ``jnp`` uint32 arithmetic, so any kernel that
+# reimplements it draws identical randomness to the engine path.
 
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)  # Threefry-2x32 rotation schedule
 # Key-schedule parity constant (Skein/Threefry).  A plain int, NOT a
@@ -169,9 +169,8 @@ def pos_normal(key: jax.Array, gids, draw: int = 0):
 
     Note: a "half-cost" strided batch form (one cipher + Box–Muller per two
     ids, interleave + slice) was tried and REMOVED — the traced-offset
-    ``dynamic_slice`` + stack/reshape interleave broke XLA fusion and measured
-    17× *slower* than this fully-fused per-id form at N=1M on v5e
-    (1188 µs/step vs 68 µs/step; see VERDICT round 2).  The cipher is not the
+    ``dynamic_slice`` + stack/reshape interleave broke XLA fusion and ran far
+    slower than this fully-fused per-id form.  The cipher is not the
     bottleneck; fusion is.
     """
     g = jnp.asarray(gids)
@@ -218,7 +217,7 @@ class StepRng:
     stream can be re-derived in O(1) for retained-trajectory replay:
 
     * :meth:`uniform` / :meth:`normal` / :meth:`normals` — direct counter-mode
-      draws (one Threefry block per element; the TPU-fast path used by
+      draws (one Threefry block per element; the fast path used by
       ``vectorized`` distributions via ``sample_positional``).
     * :meth:`particle_keys` — one jax PRNG key per particle (general path for
       kernels whose per-particle computation cannot be expressed in counted

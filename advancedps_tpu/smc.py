@@ -5,7 +5,7 @@ Reference counterparts: the per-particle stepping kernel ``advance!``
 (``/root/reference/src/smc.jl:1-57``).  The Julia ``advance!`` runs once per particle
 per step; :class:`SSMKernel` runs **all particles at once** — transition sample,
 reference-state injection, observation score and weight update fuse into one XLA
-computation over the particle axis (SURVEY.md §2.5 "TPU-native equivalent").
+computation over the particle axis (SURVEY.md §2.5 "Accelerator-native equivalent").
 """
 
 from __future__ import annotations

@@ -45,7 +45,7 @@ class StatePrior:
 
     ``vectorized = True`` declares that sampling N draws via
     ``distribution().sample(key, (n,))`` is valid — the sweep engine then uses one
-    batched counter pass per step (the TPU-fast path) instead of per-particle keys.
+    batched counter pass per step (the fast path) instead of per-particle keys.
     """
 
     vectorized: bool = False

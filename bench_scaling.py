@@ -1,14 +1,13 @@
 """Weak-scaling harness: sharded PGAS across an N-device mesh.
 
-The north-star target is ≥80% weak-scaling efficiency for PGAS at 1M particles
-across a v5e pod slice (BASELINE.md).  This harness runs the sharded conditional
-sweep at a fixed per-device particle count over meshes of 1, 2, 4, … devices and
-reports throughput and efficiency.
+This harness runs the sharded conditional sweep at a fixed per-device
+particle count over meshes of 1, 2, 4, … devices and reports throughput and
+efficiency.
 
-On real multi-chip hardware this measures ICI-collective scaling directly.  In
-this container only one TPU chip is reachable, so by default the harness runs on
-virtual CPU devices (`--platform cpu`, faking 8 devices) — that validates the
-collective code paths and the harness itself; CPU-mesh timings are *not*
+With ``--platform gpu`` it measures scaling over the host's GPUs (NCCL
+collectives over NVLink) and fails if JAX finds no GPU.  By default it runs
+on virtual CPU devices (`--platform cpu`, faking 8 devices) — that validates
+the collective code paths and the harness itself; CPU-mesh timings are *not*
 performance-representative (all "devices" share host cores).
 
 Two modes:
@@ -22,7 +21,7 @@ Two modes:
   honest single-host proxy for scaling quality: efficiency = t(1)/t(K).
 
 Usage:
-    python bench_scaling.py [--platform cpu|tpu] [--mode weak|overhead]
+    python bench_scaling.py [--platform cpu|gpu] [--mode weak|overhead]
                             [--per-device 65536] [--steps 50]
 """
 
@@ -35,7 +34,7 @@ import time
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    p.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     p.add_argument("--mode", default="weak", choices=["weak", "overhead"])
     p.add_argument("--per-device", type=int, default=65536)
     p.add_argument("--total", type=int, default=262144,
@@ -58,9 +57,14 @@ def main():
 
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/aps_jax_cache")
+    elif jax.devices()[0].platform != "gpu":
+        print("--platform gpu needs a GPU", file=sys.stderr)
+        sys.exit(1)
 
     import advancedps_tpu as aps
+    from compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from advancedps_tpu.parallel import particle_mesh, sharded_step_pg
     from advancedps_tpu.smc import SSMKernel
 
@@ -129,7 +133,7 @@ def main():
                 "CPU-mesh timings validate collective code paths, not hardware "
                 "performance (virtual devices share host cores)"
                 if args.platform == "cpu"
-                else "real-chip ICI scaling"
+                else f"{jax.devices()[0].device_kind} x {top}, NCCL collectives"
             ),
         }
     else:

@@ -172,21 +172,3 @@ def test_always_resample_specialization_matches_gated_path():
     np.testing.assert_array_equal(
         np.asarray(spec.resampled), np.asarray(gated.resampled)
     )
-
-
-def test_big_n_fallback_warns_with_reason(monkeypatch):
-    # The silent 2x-per-firing fallback cliff (round-3 weak #3) must warn at
-    # trace time with the ineligibility reason.  Forcing the backend check to
-    # "tpu" makes an int-state model ineligible for the fused path.
-    import warnings
-
-    from advancedps_tpu.ops import pallas_resample as prmod
-
-    monkeypatch.setattr(prmod.jax, "default_backend", lambda: "tpu")
-    reason = prmod.move_ineligible_reason(
-        jax.ShapeDtypeStruct((100_000,), jnp.int32), 100_000
-    )
-    assert reason is not None and "non-float32" in reason
-    assert prmod.move_ineligible_reason(
-        jax.ShapeDtypeStruct((100_000,), jnp.float32), 100_000
-    ) is None

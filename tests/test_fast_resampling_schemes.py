@@ -1,20 +1,14 @@
-"""Fused fast paths for stratified and multinomial resampling (round-5).
+"""The resampling path every backend runs: resamplers, state move, reference slot.
 
-Both schemes reduce to the monotone-extents problem the fused decode+move
-kernel solves (reference treats all four resamplers as first-class peers,
-``/root/reference/src/resampling.jl:31-35,98-131``):
-
-* stratified positions ``(k + u_k)/n`` are sorted by construction, and with
-  POSITIONAL uniforms the extent has a gather-free closed form
-  (``resampling.stratified_extents``);
-* multinomial uniforms are generated *sorted* via the exponential-spacings
-  order-statistics construction (``resampling.multinomial_spacings`` +
-  prefix sum + ``count_le_sorted``).
-
-These tests pin the Pallas primitives (interpret mode) against XLA/numpy
-formulas, and the end-to-end ancestor vectors against the native C++
-sequential CDF-walk oracle fed the identical uniforms.
+Each of the four schemes (the reference treats them as first-class peers,
+``src/resampling.jl:31-35,53-81,98-131,149-183``) is pinned
+against the native C++ sequential CDF walk fed the identical uniforms, over
+weight profiles from flat to degenerate.  Mismatches are allowed only in the
+float32 boundary-flip class: the position lies on a CDF step to float32
+cumsum accuracy, so either neighbour is a correct answer.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -22,111 +16,130 @@ import numpy as np
 import pytest
 
 from advancedps_tpu import rng as rngmod
+from advancedps_tpu.engine import _gather, sweep
 from advancedps_tpu.ops import native
-from advancedps_tpu.ops.pallas_resample import (
-    count_le_sorted,
-    prefix_sum,
-    resample_move_f,
-    scaled_prefix_from_logw,
-)
 from advancedps_tpu.resampling import (
-    _inverse_cdf,
-    multinomial_spacings,
+    ResampleWithESSThreshold,
+    _decode_extents,
+    resample_multinomial,
+    resample_residual,
     resample_stratified,
+    resample_systematic,
     stratified_extents,
 )
 
-
-# --- Pallas primitives (interpret mode) --------------------------------------
-
-
-@pytest.mark.parametrize("m", [1000, 4096, 5000, 70])
-def test_scaled_prefix_matches_xla(m):
-    rng = np.random.default_rng(m)
-    logw = jnp.asarray(rng.standard_normal(m).astype(np.float32) * 3)
-    mx = jnp.max(logw)
-    scale = jnp.float32(7.25)
-    want = np.asarray(jnp.cumsum(jnp.exp(logw - mx)) * scale)
-    got = np.asarray(scaled_prefix_from_logw(logw, mx, scale, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-5)
-    assert (np.diff(got) >= 0).all()  # monotone (nonneg summands)
+SCHEMES = {
+    "systematic": resample_systematic,
+    "stratified": resample_stratified,
+    "multinomial": resample_multinomial,
+    "residual": resample_residual,
+}
 
 
-@pytest.mark.parametrize("m", [1000, 4096, 20000])
-def test_prefix_sum_matches_cumsum(m):
-    rng = np.random.default_rng(m + 1)
-    x = jnp.asarray(rng.exponential(size=m).astype(np.float32))
-    want = np.cumsum(np.asarray(x, np.float64))
-    got = np.asarray(prefix_sum(x, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=3e-6)
-    assert (np.diff(got) >= 0).all()
+def _profile(name):
+    """Normalised float32 weights ``[m]`` for one named weight profile."""
+    rng = np.random.default_rng(PROFILES.index(name))
+    m = 4096
+    if name == "uniform":
+        w = np.ones(m)
+    elif name == "single_survivor":
+        w = np.zeros(m)
+        w[777] = 1.0
+    elif name == "long_flat_run":
+        # one particle owns almost everything: its offspring run spans
+        # nearly the whole output
+        w = np.full(m, 1e-9)
+        w[3] = 1.0
+    elif name == "spiky":
+        w = np.full(m, 1e-12)
+        w[rng.integers(m, size=5)] = 1.0
+    elif name == "random":
+        w = np.abs(rng.standard_normal(m))
+    elif name == "skewed":
+        w = rng.gamma(0.05, size=m)
+    elif name == "two_ends":
+        w = np.zeros(m)
+        w[0] = w[-1] = 0.5
+    elif name == "large_n":
+        w = rng.gamma(1.0, size=1 << 17)
+    return (w / w.sum()).astype(np.float32)
 
 
-@pytest.mark.parametrize("ns,nt", [(1000, 1000), (4096, 3000), (3000, 4096), (100, 5000)])
-def test_count_le_sorted_matches_searchsorted(ns, nt):
-    rng = np.random.default_rng(ns * 3 + nt)
-    s = np.sort(rng.exponential(size=ns).cumsum().astype(np.float32))
-    t = np.sort((rng.random(nt) * s[-1] * 1.05).astype(np.float32))
-    want = np.searchsorted(s, t, side="right")  # #{k: s_k <= t_j}
-    got = np.asarray(count_le_sorted(jnp.asarray(s), jnp.asarray(t), interpret=True))
-    np.testing.assert_array_equal(got, want)
+PROFILES = [
+    "uniform", "single_survivor", "long_flat_run", "spiky", "random", "skewed",
+    "two_ends", "large_n",
+]
 
 
-@pytest.mark.parametrize("ns,nt", [(1000, 1000), (4096, 3000), (100, 5000), (20000, 20000)])
-def test_count_le_sorted_bs_matches_dense(ns, nt):
-    # Binary-search merge-count (round 5) must equal the dense form exactly.
-    from advancedps_tpu.ops.pallas_resample import count_le_sorted_bs
+def _native_uniforms(scheme, key, n):
+    """The uniforms the JAX scheme consumes, in the native oracle's layout."""
+    if scheme == "systematic":
+        return float(jax.random.uniform(key, dtype=jnp.float32))
+    return np.asarray(rngmod.pos_uniform(key, jnp.arange(n)), np.float32)
 
-    rng = np.random.default_rng(ns + 7 * nt)
-    s = np.sort(rng.exponential(size=ns).cumsum().astype(np.float32))
-    t = np.sort((rng.random(nt) * s[-1] * 1.05).astype(np.float32))
-    want = np.searchsorted(s, t, side="right")
-    got = np.asarray(
-        count_le_sorted_bs(jnp.asarray(s), jnp.asarray(t), interpret=True)
+
+def _boundary_flips_only(got, want, w, positions, tol=1e-4):
+    """Every mismatch is a position within ``tol`` of the CDF step between
+    the two answers (float32 vs float64 cumsum rounding)."""
+    bad = np.nonzero(got != want)[0]
+    cdf = np.cumsum(w.astype(np.float64))
+    lo = np.minimum(got[bad], want[bad])
+    hi = np.maximum(got[bad], want[bad])
+    p = positions[bad]
+    return bool(
+        (np.abs(cdf[lo] - p) < tol).all() and (np.abs(cdf[hi - 1] - p) < tol).all()
     )
-    np.testing.assert_array_equal(got, want)
 
 
-def test_decode_ancestors_bs_matches_dense():
-    # Binary-search decode (round 5, the v6 default) vs the dense staircase.
-    from advancedps_tpu.ops.pallas_resample import (
-        decode_ancestors,
-        decode_ancestors_bs,
-    )
-
-    rng = np.random.default_rng(3)
-    for m, n, skew in [(5000, 4097, 0.3), (20000, 20000, 0.3), (3000, 8192, None)]:
-        if skew is None:
-            w = np.full(m, 1e-12)
-            w[rng.integers(m, size=4)] = 1.0
-        else:
-            w = rng.gamma(skew, size=m)
-        w = (w / w.sum()).astype(np.float32)
-        f = jnp.clip(
-            jnp.ceil(n * jnp.cumsum(jnp.asarray(w)) - 0.3), 0, n
-        ).astype(jnp.int32)
-        a = np.asarray(decode_ancestors(f, n, interpret=True))
-        b = np.asarray(decode_ancestors_bs(f, n, interpret=True))
-        np.testing.assert_array_equal(a, b)
-
-
-def test_count_le_sorted_extremes():
-    s = jnp.asarray(np.arange(1, 2049, dtype=np.float32))
-    # thresholds below every value, between, above every value
-    t = jnp.asarray(np.asarray([0.0, 0.5, 1.0, 1024.5, 2048.0, 9999.0], np.float32))
-    got = np.asarray(count_le_sorted(s, t, interpret=True))
-    np.testing.assert_array_equal(got, [0, 0, 1, 1024, 2048, 2048])
+@pytest.mark.skipif(not native.available(), reason="g++ unavailable")
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_resampler_matches_native_oracle(scheme, profile):
+    w = _profile(profile)
+    n = w.shape[0]
+    key = jax.random.key(len(profile) * 31 + len(scheme))
+    got = np.asarray(SCHEMES[scheme](key, jnp.asarray(w), n))
+    us = _native_uniforms(scheme, key, n)
+    want = getattr(native, scheme)(us, w, n)
+    assert got.shape == (n,) and got.dtype == np.int32
+    assert got.min() >= 0 and got.max() < n
+    # float32 cumsum error grows with n; at n = 2^17 it reaches ~1/4 of the
+    # 1/n position spacing, so a few tenths of a percent of slots flip.
+    agree = (got == want).mean()
+    assert agree > 0.99, agree
+    if scheme == "residual":
+        # Deterministic copies use floor(n·w) in float32 here and in float64
+        # in the oracle; the tail then draws with the same uniforms.
+        return
+    if scheme == "systematic":
+        positions = (us + np.arange(n)) / n
+    elif scheme == "stratified":
+        positions = (us.astype(np.float64) + np.arange(n)) / n
+    else:
+        positions = us.astype(np.float64)
+    assert _boundary_flips_only(got, want, w, positions)
 
 
-def test_count_le_sorted_long_stall():
-    # One tiny threshold block, values spanning many chunks: the walk must
-    # consume all chunks in the final (padded) region without overcounting.
-    ns = 8192
-    s = jnp.asarray(np.linspace(0.0, 1.0, ns, dtype=np.float32))
-    t = jnp.asarray(np.asarray([0.25, 0.5, 1.0], np.float32))
-    got = np.asarray(count_le_sorted(s, t, interpret=True))
-    want = np.searchsorted(np.asarray(s), np.asarray(t), side="right")
-    np.testing.assert_array_equal(got, want)
+# --- the extents decode ---------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "f,n,want",
+    [
+        # counts 0,2,0,3,3,0,0,0 over n=8
+        ([0, 2, 2, 5, 8, 8, 8, 8], 8, [1, 1, 3, 3, 3, 4, 4, 4]),
+        # one particle owns every slot
+        ([0, 0, 6, 6], 6, [2, 2, 2, 2, 2, 2]),
+        # identity
+        ([1, 2, 3, 4], 4, [0, 1, 2, 3]),
+        # slots past f[-1] repeat the last nonempty run
+        ([2, 3, 3], 5, [0, 0, 1, 1, 1]),
+    ],
+    ids=["runs", "single_owner", "identity", "short_extents"],
+)
+def test_decode_extents_runlength(f, n, want):
+    got = _decode_extents(jnp.asarray(f, jnp.int32), n)
+    np.testing.assert_array_equal(np.asarray(got), want)
 
 
 # --- stratified: closed-form extents -----------------------------------------
@@ -155,24 +168,6 @@ def test_stratified_extents_match_searchsorted_formulation(m, n):
     assert (np.diff(f) >= 0).all() and f.min() >= 0 and f.max() <= n
 
 
-@pytest.mark.parametrize("m,n", [(2048, 2048), (4096, 1024)])
-def test_stratified_fast_path_matches_native_oracle(m, n):
-    if not native.available():
-        pytest.skip("native oracle unavailable")
-    key = jax.random.key(17 * m + n)
-    w = _np_weights(m, seed=3)
-    us = np.asarray(rngmod.pos_uniform(key, jnp.arange(n)), np.float32)
-    want = native.stratified(us, w, n)
-    c = n * jnp.cumsum(jnp.asarray(w))
-    f = stratified_extents(key, c, n)
-    anc, moved = resample_move_f(
-        f, jnp.arange(m, dtype=jnp.float32), n, interpret=True
-    )
-    agree = (np.asarray(anc) == want).mean()
-    assert agree > 0.999, agree
-    np.testing.assert_array_equal(np.asarray(moved), np.asarray(anc, np.float32))
-
-
 def test_resample_stratified_positional_searchsorted_agrees_with_extents():
     # The standalone searchsorted form and the extents form consume the SAME
     # positional uniforms — they must agree up to ±1 boundary flips.
@@ -197,80 +192,94 @@ def test_stratified_extents_degenerate_weights():
     assert f[776] == 0 and f[777] == n and f[-1] == n
 
 
-# --- multinomial: sorted-spacings construction -------------------------------
+# --- the state move: one gather of the whole particle state ------------------
 
 
-def _multinomial_fast_anc(key, w, n, m):
-    g = multinomial_spacings(key, n)
-    S = prefix_sum(g, interpret=True)
-    mx = jnp.max(jnp.log(w))
-    thr = scaled_prefix_from_logw(
-        jnp.log(w), mx, S[n] / jnp.sum(jnp.exp(jnp.log(w) - mx)), interpret=True
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.int32])
+@pytest.mark.parametrize("width", [1, 2, 17, 256])
+def test_gather_moves_exact_copies(width, dtype):
+    n = 1000
+    rng = np.random.default_rng(width)
+    x = rng.standard_normal((n, width)) * 1e3
+    x = jnp.asarray(x.astype(np.int32) if dtype == jnp.int32 else x.astype(np.float32))
+    idx = jnp.asarray(np.sort(rng.integers(0, n, size=n)).astype(np.int32))
+    moved = _gather(x, idx)
+    assert moved.dtype == x.dtype and moved.shape == x.shape
+    np.testing.assert_array_equal(np.asarray(moved), np.asarray(x)[np.asarray(idx)])
+
+
+def test_gather_moves_pytree_and_int_leaves():
+    n = 257
+    rng = np.random.default_rng(0)
+    state = {
+        "x": jnp.asarray(rng.standard_normal((n, 3)).astype(np.float32)),
+        "count": jnp.arange(n, dtype=jnp.int32),
+        "flag": jnp.asarray(rng.random(n) < 0.5),
+        "hist": (jnp.asarray(rng.standard_normal((n, 4, 2)).astype(np.float32)),),
+    }
+    idx = jnp.asarray(rng.integers(0, n, size=n).astype(np.int32))
+    moved = _gather(state, idx)
+    np_idx = np.asarray(idx)
+    leaves = zip(jax.tree_util.tree_leaves(moved), jax.tree_util.tree_leaves(state))
+    for got, orig in leaves:
+        assert got.dtype == orig.dtype
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(orig)[np_idx])
+
+
+# --- conditional sweeps: slot N-1 holds the reference ------------------------
+
+
+@pytest.mark.parametrize("ancestor_sampling", [False, True], ids=["pg", "pgas"])
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_reference_slot_holds_reference_row(scheme, ancestor_sampling):
+    # Slot N-1 carries the reference row at every step, and its recorded
+    # ancestor is N-1 (PG) or the drawn ancestor (PGAS) — the genealogy splice
+    # of the reference's src/pgas.jl:113-128.
+    import advancedps_tpu as aps
+    from advancedps_tpu.smc import SSMKernel
+
+    model = aps.models.stationary_lgssm(a=0.9, q=0.32, r=1.0)
+    _, ys = aps.simulate(jax.random.key(0), model, 10)
+    kernel = SSMKernel(ssm=aps.TracedSSM(model, ys))
+    ref = jnp.linspace(-2.0, 2.0, 10)
+    n = 64
+    res = sweep(
+        jax.random.key(5),
+        kernel,
+        n,
+        ResampleWithESSThreshold(SCHEMES[scheme], float("inf")),
+        ref=ref,
+        ancestor_sampling=ancestor_sampling,
     )
-    f = count_le_sorted(S[:n], thr, interpret=True)
-    anc, moved = resample_move_f(
-        f, jnp.arange(m, dtype=jnp.float32), n, interpret=True
-    )
-    return np.asarray(anc), S
+    np.testing.assert_array_equal(np.asarray(res.states[:, -1]), np.asarray(ref))
+    anc = np.asarray(res.ancestors)
+    if not ancestor_sampling:
+        assert (anc[:, -1] == n - 1).all()
+    else:
+        # The drawn ancestor is a real slot, and over 9 firings the draw
+        # leaves slot N-1 at least once (probability 1 - O(1/N^9) otherwise).
+        assert ((anc[1:, -1] >= 0) & (anc[1:, -1] < n)).all()
+        assert (anc[1:, -1] != n - 1).any()
+    # Non-reference slots descend from the drawn population only.
+    assert (anc[1:, :-1] < n).all()
 
 
-@pytest.mark.parametrize("m,n", [(2048, 2048), (1024, 4096)])
-def test_multinomial_fast_path_matches_native_oracle(m, n):
-    if not native.available():
-        pytest.skip("native oracle unavailable")
-    key = jax.random.key(23 * m + n)
-    w = _np_weights(m, seed=11)
-    anc, S = _multinomial_fast_anc(key, jnp.asarray(w), n, m)
-    # oracle fed the identical sorted positions S_k / S_n
-    pos = (np.asarray(S[:n], np.float64) / float(S[n])).astype(np.float32)
-    want = native.multinomial(pos, w, n)
-    agree = (anc == want).mean()
-    assert agree > 0.999, agree
-    assert (np.diff(anc) >= 0).all()  # sorted draws => sorted ancestors
-
-
-def test_multinomial_fast_path_offspring_distribution():
-    # Offspring counts must be Multinomial(n, w): mean n·w_j, the frequency
-    # oracle tolerance class of /root/reference/test/resampling.jl:14-15.
-    m = 3
-    n = 100_000
-    w = jnp.asarray([0.3, 0.4, 0.3], jnp.float32)
-    key = jax.random.key(42)
-    anc, _ = _multinomial_fast_anc(key, w, n, m)
-    freq = np.bincount(anc, minlength=m) / n
-    np.testing.assert_allclose(freq, np.asarray(w), atol=1e-2)
-
-
-def test_multinomial_spacings_are_finite_positive():
-    g = np.asarray(multinomial_spacings(jax.random.key(1), 100_000))
-    assert g.shape == (100_001,)
-    assert np.isfinite(g).all() and (g >= 0).all()
-
-
-# --- engine integration (CPU fallback path, statistical) ---------------------
+# --- engine integration (statistical) ----------------------------------------
 
 
 def test_engine_sweep_with_each_scheme_matches_kalman():
-    # All three fused-capable schemes through the public sweep on the CPU
-    # fallback path: logZ must approximate the exact Kalman evidence.
+    # All four schemes through the public sweep: logZ must approximate the
+    # exact Kalman evidence.
     import advancedps_tpu as aps
-    from advancedps_tpu.resampling import (
-        ResampleWithESSThreshold,
-        resample_multinomial,
-        resample_stratified,
-        resample_systematic,
-    )
 
     a, q, r = 0.9, 0.32, 1.0
-    import math
-
     sigma0 = math.sqrt(q * q / (1 - a * a))
     model = aps.models.stationary_lgssm(a=a, q=q, r=r)
     key = jax.random.key(7)
     _, ys = aps.simulate(key, model, 25)
     traced = aps.TracedSSM(model, ys)
     kf = aps.utils.kalman_filter(np.asarray(ys), a, 0.0, q, 1.0, r, 0.0, sigma0)
-    for scheme in (resample_systematic, resample_stratified, resample_multinomial):
+    for scheme in SCHEMES.values():
         smc = aps.SMC(2000, resampler=ResampleWithESSThreshold(resampler=scheme))
         out = aps.sample(jax.random.fold_in(key, 1), traced, smc)
         assert abs(float(out.log_evidence) - float(kf.log_likelihood)) < 0.5, (

@@ -2,8 +2,9 @@
 
 Same uniforms in, same semantics out: the sequential CDF walks in
 ``cpp/resampling.cpp`` and the searchsorted/scatter formulations in
-``advancedps_tpu/resampling.py`` must agree (up to float32 cumsum
-reduction-order at CDF boundaries — a tiny fraction of indices by ±1).
+``advancedps_tpu/resampling.py`` (extents decode, batched search) must agree
+(up to float32 cumsum reduction-order at CDF boundaries — a tiny fraction of
+indices by ±1).
 """
 
 import jax
@@ -12,11 +13,7 @@ import numpy as np
 import pytest
 
 from advancedps_tpu.ops import native
-from advancedps_tpu.resampling import (
-    _inverse_cdf,
-    _systematic_scatter,
-    _systematic_searchsorted,
-)
+from advancedps_tpu.resampling import _inverse_cdf, _systematic
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="g++ unavailable; native oracle not built"
@@ -37,7 +34,7 @@ def test_systematic_matches_native(m, n):
     w = _weights(m)
     u = 0.37
     want = native.systematic(u, w, n)
-    got = _systematic_searchsorted(jnp.float32(u), jnp.asarray(w), n)
+    got = _systematic(jnp.float32(u), jnp.asarray(w), n)
     assert _agreement(got, want) > 0.999
 
 
@@ -46,7 +43,7 @@ def test_systematic_scatter_matches_native(m):
     w = _weights(m, seed=1)
     u = 0.61
     want = native.systematic(u, w, m)
-    got = _systematic_scatter(jnp.float32(u), jnp.asarray(w), m)
+    got = _systematic(jnp.float32(u), jnp.asarray(w), m)
     assert _agreement(got, want) > 0.995  # f32 n*cdf rounding: rare ±1 flips
 
 

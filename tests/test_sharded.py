@@ -114,7 +114,7 @@ def test_vectorized_models_bit_exact(mesh):
     # positional counter-mode draws (rng.pos_* — element i depends only on the
     # global particle id), so the sharded sweep is bit-identical to the
     # single-chip sweep in its randomness; log-evidence matches to reduction-
-    # order tolerance and ancestors agree entirely (VERDICT r1 item 5).
+    # order tolerance and ancestors agree entirely.
     import math
 
     a, q, r = 0.9, 0.32, 0.5
@@ -303,6 +303,23 @@ class TestNeighborExchange:
             self._sweep(kernel, key, mesh, exchange="auto"),
         )
 
+    @pytest.mark.parametrize("k", [2, 4, 8])
+    def test_windows_equal_slices_of_full_decode(self, setup, k):
+        # Each shard's window decode over its 3L-row extents equals its slice
+        # of the replicated full-population decode (the all_gather path), on
+        # every firing of an always-resample sweep.
+        kernel = setup
+        key = jax.random.key(100 + k)
+        gated = ResampleWithESSThreshold(resample_systematic, float("inf"))
+        mesh_k = particle_mesh(k)
+        nb, ag = (
+            sharded_sweep(key, kernel, 256, gated, mesh_k, exchange=m)
+            for m in ("neighbor", "allgather")
+        )
+        assert bool(np.asarray(ag.resampled)[1:].all())
+        np.testing.assert_array_equal(np.asarray(nb.ancestors), np.asarray(ag.ancestors))
+        np.testing.assert_array_equal(np.asarray(nb.states), np.asarray(ag.states))
+
     def test_auto_falls_back_on_heavy_skew(self, mesh):
         # A severely misspecified observation noise makes every step nearly
         # degenerate (one dominant particle at a random slot), so ancestor
@@ -360,10 +377,10 @@ class TestNeighborExchange:
 
     def test_pgas_step_collective_count_budget(self, setup, mesh):
         # The flagship config (always-resample PGAS, neighbor exchange): pin
-        # not just payload sizes but the COUNT of collectives — on real ICI
-        # each scalar collective is a serial latency round (round-3 verdict
-        # weak #6).  The scan body appears once in the jaxpr text, so these
-        # counts are per-step budgets: one fused (Σe, Σe²) psum (plus the
+        # not just payload sizes but the COUNT of collectives — on a real
+        # interconnect each scalar collective is a serial latency round.  The
+        # scan body appears once in the jaxpr text, so these counts are
+        # per-step budgets: one fused (Σe, Σe²) psum (plus the
         # close-out psum after the scan), two pmax (weight max + ancestor-draw
         # vmax, plus close-out), one pmin (ancestor owner-select), four
         # ppermutes (extents + D=1 state, left and right), and only K-sized
